@@ -42,9 +42,9 @@ def main():
     args = ap.parse_args()
 
     if args.platform:
+        # read by jax when it is first imported (below, through bench)
         os.environ['JAX_PLATFORMS'] = args.platform
     import bench
-    bench._configure_jax(args.platform)
 
     from ultranest_tpu import models
     if args.problem == 'gauss100':

@@ -2,13 +2,12 @@
 
 The adaptive governor's doublings (100 -> 200 -> 400 on the sigma=0.01
 gaussian) each invalidate the segment kernel; on a cold compile cache
-the next dispatch blocks in XLA, billed to the 'launch' phase (16.15 s
-in the r5 dev bench record). The prewarm thread builds the doubled
-kernel while the run proceeds, so growth events should find a warm
-executable.
+the next dispatch blocks in XLA, billed to the 'launch' phase. The
+prewarm thread builds the doubled kernel while the run proceeds, so
+growth events should find a warm executable.
 
-Each arm runs in THIS process with a fresh ULTRANEST_TPU_COMPILE_CACHE
-dir, so run one arm per process:
+Each arm runs in THIS process with a fresh JAX_COMPILATION_CACHE_DIR,
+so run one arm per process:
 
     python evaluate/prewarm_ab.py on
     python evaluate/prewarm_ab.py off
@@ -22,7 +21,7 @@ import tempfile
 
 arm = sys.argv[1] if len(sys.argv) > 1 else 'on'
 cache = tempfile.mkdtemp(prefix='prewarm-ab-%s-' % arm)
-os.environ['ULTRANEST_TPU_COMPILE_CACHE'] = cache
+os.environ['JAX_COMPILATION_CACHE_DIR'] = cache
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))

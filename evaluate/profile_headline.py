@@ -15,17 +15,17 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
+import jax  # noqa: E402
 
-jax = bench._configure_jax()
-on_tpu = jax.default_backend() != 'cpu'
+use_jax = jax.default_backend() != 'cpu'
 print('backend:', jax.default_backend())
 
-bench.run_asymgauss50(on_tpu)          # warm-up: compiles + program load
+bench.run_asymgauss50(use_jax)          # warm-up: compiles + program load
 
 pr = cProfile.Profile()
 t0 = time.time()
 pr.enable()
-row = bench.run_asymgauss50(on_tpu)
+row = bench.run_asymgauss50(use_jax)
 pr.disable()
 print('warm wall: %.3f s' % (time.time() - t0))
 print('row:', {k: v for k, v in row.items() if k != 'phases'})

@@ -7,7 +7,7 @@ amplitude and offset, so the parameter count grows linearly with the
 number of objects. Region rejection sampling degrades exponentially
 with dimension; step samplers (slice sampling) scale polynomially, and
 the device-resident population slice sampler keeps whole walker
-populations on the TPU.
+populations on the accelerator.
 
 Run::
 
@@ -85,7 +85,7 @@ def main(fast=False, use_jax=False, n_objects=4):
     nsteps = 2 * ndim
     if use_jax:
         # device-resident population slice sampler: entire walker
-        # populations advance through all slice steps per TPU dispatch
+        # populations advance through all slice steps per device dispatch
         import jax.numpy as jnp
         from ultranest_tpu.popfused import FusedPopulationSliceSampler
 

@@ -2,7 +2,7 @@
 
 Drives the real shard_map kernels (bootstrap radius, fused proposal)
 over a mesh spanning two OS processes connected through
-``jax.distributed`` + gloo — the TPU-native equivalent of the
+``jax.distributed`` + gloo — the JAX equivalent of the
 reference's MPI deployment (integrator.py:1148-1159). Each subprocess
 compares its multi-process result against the locally computed
 single-process value.
@@ -130,7 +130,7 @@ from ultranest_tpu.parallel import launch
 launch.init_distributed()
 assert jax.process_count() == nproc, jax.process_count()
 if use_slice_mesh:
-    # 2-axis (dcn, ranks) mesh: process groups x devices-per-process
+    # 2-axis (hosts, ranks) mesh: process groups x devices-per-process
     mesh = launch.slice_mesh()
     assert mesh.devices.shape == (nproc, ndev), mesh
 else:
@@ -241,9 +241,9 @@ def test_four_process_full_run(tmp_path):
 
 @pytest.mark.slow
 def test_slice_mesh_full_run(tmp_path):
-    """Full reactive run on the 2-axis (dcn, ranks) slice_mesh spanning
+    """Full reactive run on the 2-axis (hosts, ranks) slice_mesh spanning
     2 process groups x 2 devices: collectives take the axis tuple, the
-    outer axis crosses the process boundary (DCN analogue)."""
+    outer axis crosses the process boundary (the network between hosts)."""
     results = _run_controllers(tmp_path, _CHILD_FULLRUN, '9951',
                                'FULLRUN_OK', nproc=2,
                                extra_args=(2, 2, 'slice'), timeout=900)

@@ -1,10 +1,10 @@
-"""Multi-slice (2-axis DCN x ICI mesh) execution tests.
+"""Multi-host (2-axis hosts x devices mesh) execution tests.
 
 The reference has no machine topology awareness at all — MPI ranks are
-flat (/root/reference/ultranest/integrator.py:1148-1159). The TPU-native
-design models a multi-slice pod as a 2-axis ('dcn', 'ranks') mesh: the
-engines shard work over BOTH axes and the tuple-axis collectives are
-decomposed hierarchically by XLA (ICI within a slice, DCN across).
+flat (reference ultranest/integrator.py:1148-1159). Here a
+multi-host job is a 2-axis ('hosts', 'ranks') mesh: the engines shard
+work over BOTH axes and the tuple-axis collectives are decomposed
+hierarchically by XLA (within a host first, then across hosts).
 
 Because the per-shard RNG folds in the LINEAR device index and tiled
 all_gathers concatenate in the same row-major order, a (2, 4) mesh must
@@ -27,18 +27,18 @@ def jax_loglike(theta):
 
 
 def test_make_mesh_2d():
-    mesh = make_mesh(shape=(2, 4), axis_name=('dcn', 'ranks'))
+    mesh = make_mesh(shape=(2, 4), axis_name=('hosts', 'ranks'))
     assert mesh.devices.shape == (2, 4)
-    assert mesh.axis_names == ('dcn', 'ranks')
-    assert mesh_axes(mesh) == ('dcn', 'ranks')
+    assert mesh.axis_names == ('hosts', 'ranks')
+    assert mesh_axes(mesh) == ('hosts', 'ranks')
     assert mesh_axes(make_mesh(4)) == 'ranks'
 
 
 def test_slice_mesh_single_process_fallback():
     from ultranest_tpu.parallel.launch import slice_mesh
     mesh = slice_mesh()
-    # single-process CPU job: all devices share slice/process -> 1 x N
-    assert mesh.axis_names == ('dcn', 'ranks')
+    # single-process job: all devices share one process -> 1 x N
+    assert mesh.axis_names == ('hosts', 'ranks')
     assert mesh.devices.shape[0] == 1
     assert mesh.devices.size == len(jax.devices())
 
@@ -58,7 +58,7 @@ def test_2axis_fused_sampler_matches_1axis_bitwise():
         return res['logz'], res['niter'], sampler.ncall
 
     flat = run(make_mesh(8))
-    twoax = run(make_mesh(shape=(2, 4), axis_name=('dcn', 'ranks')))
+    twoax = run(make_mesh(shape=(2, 4), axis_name=('hosts', 'ranks')))
     assert flat == twoax, (flat, twoax)
     expected = np.log(2 * np.pi * 0.1**2)
     assert abs(flat[0] - expected) < 1.0, (flat[0], expected)
@@ -85,7 +85,7 @@ def test_2axis_population_sampler_matches_1axis_bitwise():
                           cluster_num_live_points=0)
         return res['logz'], res['niter'], sampler.ncall
 
-    twoax = run(make_mesh(shape=(2, 4), axis_name=('dcn', 'ranks')))
+    twoax = run(make_mesh(shape=(2, 4), axis_name=('hosts', 'ranks')))
     flat = run(make_mesh(8))
     assert flat == twoax, (flat, twoax)
     assert abs(flat[0] - prob.logz) < 3.0, (flat[0], prob.logz)
@@ -97,7 +97,7 @@ def test_2axis_bootstrap_radius_matches_single_device():
     rng = np.random.RandomState(7)
     tpoints = rng.normal(size=(300, 6))
     masks = make_bootstrap_masks(len(tpoints), 32, rng=rng)
-    mesh = make_mesh(shape=(2, 4), axis_name=('dcn', 'ranks'))
+    mesh = make_mesh(shape=(2, 4), axis_name=('hosts', 'ranks'))
     r_single = _bootstrap_radius(tpoints, masks)
     r_sharded = _bootstrap_radius(tpoints, masks, mesh=mesh)
     np.testing.assert_allclose(r_sharded, r_single, rtol=1e-6)
@@ -110,7 +110,7 @@ def test_2axis_strategy_kl_table_matches_host():
     ref = np.log(rng.dirichlet(np.ones(niter))).reshape((-1, 1))
     other = np.log(rng.dirichlet(np.ones(niter), size=nboot)).T
     KL_host, KLtot_host = bootstrap_kl_table(ref, other, mesh=None)
-    mesh = make_mesh(shape=(2, 4), axis_name=('dcn', 'ranks'))
+    mesh = make_mesh(shape=(2, 4), axis_name=('hosts', 'ranks'))
     KL_dev, KLtot_dev = bootstrap_kl_table(ref, other, mesh=mesh)
     np.testing.assert_allclose(KL_dev, KL_host, atol=1e-6)
     np.testing.assert_allclose(KLtot_dev, KLtot_host, atol=1e-4)

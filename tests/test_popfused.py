@@ -167,18 +167,23 @@ def test_useful_evals_equal_billed_without_speculation():
 def test_optimal_spec_depth_decisions():
     """Depth economics: free likelihoods keep the configured depth,
     expensive ones select 1, near-ties keep the configuration."""
-    from ultranest_tpu.popfused import optimal_spec_depth
+    from ultranest_tpu.popfused import ROUND_OVERHEAD_S, optimal_spec_depth
+    # the model depends on the likelihood cost only relative to the
+    # round overhead
+    A = ROUND_OVERHEAD_S
     assert optimal_spec_depth(0.0, 8) == 8
-    assert optimal_spec_depth(10e-3, 8) == 1      # 30x the round overhead
-    # comparable to the round overhead: modeled near-tie, keep config
-    assert optimal_spec_depth(30e-6, 8) == 8
+    assert optimal_spec_depth(30 * A, 8) == 1     # 30x the round overhead
+    assert optimal_spec_depth(10e-3, 8, round_overhead_s=350e-6) == 1
+    # an order of magnitude below the round overhead: modeled near-tie,
+    # keep config
+    assert optimal_spec_depth(A / 12, 8) == 8
     # monotone: cost never selects a depth ABOVE the configured one
     assert optimal_spec_depth(1e-3, 4) <= 4
 
 
 def test_spec_depth_auto_lowers_for_slow_likelihood():
-    """An artificially slow likelihood must select depth 1 (VERDICT r4
-    item 2): speculation multiplies billed rows for a latency saving an
+    """An artificially slow likelihood must select depth 1:
+    speculation multiplies billed rows for a latency saving an
     expensive likelihood cannot benefit from."""
     import jax
     import jax.numpy as jnp

@@ -7,7 +7,7 @@ Deforms the unit-cube prior around a known posterior (from an earlier or
 similar run) and undoes the deformation with a correction weight carried
 as an extra derived parameter — so a fresh run needs far fewer
 iterations. Based on Petrosyan & Handley (2022, arxiv:2212.01760);
-TPU-native rebuild of `/root/reference/ultranest/hotstart.py`.
+JAX rebuild of the reference's `ultranest/hotstart.py`.
 
 All deformations are host-side closures wrapped around the user functions
 (cold path); the accelerated run itself goes through the standard device

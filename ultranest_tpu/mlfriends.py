@@ -11,7 +11,7 @@ Constructs sampling regions from neighbourhoods around the live points:
 * a fast axis-aligned ellipsoid region for high-d step sampling,
 * a wrapping ellipsoid for filtering in user-transformed space.
 
-TPU-native rebuild of `/root/reference/ultranest/mlfriends.pyx`. The class
+JAX rebuild of the reference's `ultranest/mlfriends.pyx`. The class
 API is preserved; the O(N^2 d) kernels (radius bootstraps, neighbour
 queries, clustering) run on device via :mod:`ultranest_tpu.ops`, batched
 over bootstrap rounds. Host code holds the small d x d linear algebra and
@@ -339,7 +339,7 @@ class LocalAffineLayer(AffineLayer):
     """Affine layer learned from locally (MLradius) co-centered points.
 
     The default layer: each point has the mean of its radius-neighbourhood
-    subtracted (one MXU matmul on device), giving a local covariance.
+    subtracted (one matrix product on device), giving a local covariance.
     """
 
     def create_new(self, upoints, maxradiussq, minvol=0.0):

@@ -126,7 +126,7 @@ def corrgauss(ndim=4, rho=0.95, sigma=0.1):
     def jax_loglike(theta):
         d = theta - 0.5
         return -0.5 * jnp.einsum('ij,jk,ik->i', d, jnp.asarray(invcov),
-                                 d) + norm
+                                 d, precision='highest') + norm
 
     return Problem('corrgauss%dd' % ndim, _names(ndim), loglike, None,
                    jax_loglike, None, logz=0.0)
@@ -520,7 +520,8 @@ def dirichlet(ndim=8, seed=4, ndata=10, nsamples=400):
     def jax_loglike(params):
         frac = jnp.dot(jnp.asarray(binned, jnp.float32),
                        _full(jnp, params).T,
-                       preferred_element_type=jnp.float32) / nsamples
+                       preferred_element_type=jnp.float32,
+                       precision='highest') / nsamples
         return jnp.log(frac + 1e-30).sum(axis=0)
 
     def transform(u):

@@ -8,7 +8,7 @@ Nested sampling exploration expressed as a breadth-first search over a tree
 children split it, leaves are the integration tail. The number of parallel
 arcs passing a node is the local number of live points.
 
-TPU-native rebuild of the reference engine (cf.
+JAX rebuild of the reference engine (cf.
 /root/reference/ultranest/netiter.py). Differences from the reference:
 
 * the integrator state (``MultiCounter``) advances all ``1+nbootstraps``
@@ -17,7 +17,7 @@ TPU-native rebuild of the reference engine (cf.
 * this layer is deliberately host/numpy: per-iteration work is a handful of
   length-(B+1) vector ops, far below any useful device-offload threshold.
   The heavy work (region geometry, likelihoods) lives in
-  :mod:`ultranest_tpu.ops` on the TPU.
+  :mod:`ultranest_tpu.ops` on the device.
 """
 
 import bisect
@@ -477,9 +477,9 @@ class MultiCounter:
     def reset(self, nentries):
         """Reset integration state for *nentries* counters."""
         # amortized-growth (niter, ncounters) buffer: a python list of
-        # 40k+ small per-iteration rows costs ~0.5 s to np.array() in
-        # combine_results at headline scale; the 2D buffer makes that a
-        # cheap block copy (rows are append-only, never mutated)
+        # 40k+ small per-iteration rows is slow to np.array() in
+        # combine_results; the 2D buffer makes that a cheap block copy
+        # (rows are append-only, never mutated)
         self._logw_buf = np.empty((1024, nentries))
         self._logw_n = 0
         self.istail = []
@@ -858,7 +858,7 @@ def combine_results(saved_logl, saved_nodeids, pointpile, main_iterator,
     with np.errstate(over='ignore', under='ignore', invalid='ignore'):
         # in-place chain: the (niter, nbootstraps) weight block is the
         # largest allocation of the results assembly (3 temporaries =
-        # ~30 MB at the 50-d headline; measured 68 -> 48 ms in-place)
+        # ~30 MB at 45k iterations x 30 bootstraps)
         saved_wt_bs = saved_logwt_bs + saved_logl.reshape((-1, 1))
         np.subtract(saved_wt_bs, logZ_bs, out=saved_wt_bs)
         np.exp(saved_wt_bs, out=saved_wt_bs)
@@ -881,8 +881,7 @@ def combine_results(saved_logl, saved_nodeids, pointpile, main_iterator,
 
     # prior->posterior compression per axis, in bits, from the weighted
     # unit-cube marginal histograms — all axes binned in one bincount
-    # pass (50 per-column np.histogram calls argsort the column each;
-    # measured ~0.1 s of the results assembly on a 44k-iteration run)
+    # pass (50 per-column np.histogram calls argsort the column each)
     bins = np.linspace(0, 1, 40)
     nb = len(bins) - 1
     ndim_u = saved_u.shape[1]
@@ -893,8 +892,7 @@ def combine_results(saved_logl, saved_nodeids, pointpile, main_iterator,
     np.clip(bidx, 0, nb - 1, out=bidx)
     # one flat bincount over all axes (bin ids offset per axis): the
     # 50-per-column loop re-read a strided column + the weight vector
-    # per axis (measured 0.29 s warm on the shared 1-vCPU bench host vs
-    # 0.05 s flat, identical output)
+    # per axis (identical output)
     bidx += np.arange(ndim_u, dtype=np.int32)[None, :] * nb
     hists = np.bincount(
         bidx.ravel(), weights=np.repeat(saved_wt0, ndim_u),

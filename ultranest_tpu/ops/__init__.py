@@ -1,14 +1,14 @@
 # noqa: D400 D205
 """
-Device compute kernels (JAX/XLA/Pallas)
----------------------------------------
+Device compute kernels (JAX/XLA)
+--------------------------------
 
-TPU-native replacements for the reference's two Cython extension modules
+Device replacements for the reference's two Cython extension modules
 (`mlfriends.pyx` kernels and `stepfuncs.pyx`). Everything here is jittable,
 shape-stable (padded + masked), and batched:
 
 * :mod:`.pairwise` — pairwise-distance reductions (MLFriends radius,
-  neighbour queries) built on MXU matmuls;
+  neighbour queries) by direct-difference distances;
 * :mod:`.bootstrap` — the bootstrapped radius/enlargement kernel, computing
   the N x N distance matrix once and reusing it for all bootstrap rounds;
 * :mod:`.cluster` — connected components (friends-of-friends) via

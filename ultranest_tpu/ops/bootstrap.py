@@ -3,7 +3,7 @@
 Bootstrapped region radius / ellipsoid enlargement
 --------------------------------------------------
 
-TPU-native replacement for the reference's bootstrap loop
+Device replacement for the reference's bootstrap loop
 (`/root/reference/ultranest/mlfriends.pyx:1017-1070`, `:1392-1440`,
 `:1501-1548`, `:1569-1597`): B rounds of "select a random subset of live
 points, wrap them, measure how far the *unselected* points stick out".
@@ -11,14 +11,15 @@ points, wrap them, measure how far the *unselected* points stick out".
 Work split:
 
 * the O(B N^2 d) radius part runs on device — the N x N whitened-space
-  distance matrix is computed **once** (one MXU matmul) and every
-  bootstrap round is a masked min/max reduction over it, i.e.
-  O(N^2 d + B N^2) instead of the reference's per-round O(B N^2 d);
+  distance matrix is computed **once** and every bootstrap round is a
+  masked min/max reduction over it, i.e. O(N^2 d + B N^2) instead of
+  the reference's per-round O(B N^2 d); small problems run on the host
+  (see ``CPU_WORK_THRESHOLD``);
 * the ellipsoid enlargement rounds (B x (N d^2 + d^3) flops — tiny) are
   batched host numpy in f64: einsum covariance per mask, batched inverse,
-  batched Mahalanobis. This keeps heavyweight linear algebra out of the
-  device compile path (remote TPU compiles are expensive) while still
-  vectorizing over all rounds, unlike the reference's python loop.
+  batched Mahalanobis. This keeps the linear algebra in f64 and out of
+  the device compile path while still vectorizing over all rounds,
+  unlike the reference's python loop.
 
 Numerical failures (the reference raises LinAlgError /
 FloatingPointError) surface as a validity flag / exception for the host
@@ -40,31 +41,16 @@ __all__ = ['bootstrap_radius_enlargement', 'make_bootstrap_masks']
 # numpy scalar on purpose — see ops/pairwise.py:BIG
 BIG = np.float32(1e30)
 
-# Total masked-reduction work (pairwise cells x rounds) below which the
-# radius kernel is compiled for and run on the local CPU backend instead
-# of the default accelerator. A small bootstrap (N<=1024, B=30) is ~30M
-# element-rounds — microseconds anywhere — so the accelerator's dispatch
-# latency (and, on remote backends, its first-program load costing
-# minutes) can never be amortized. Set to 0 to always use the default
+# Total masked-reduction work (padded pairwise cells x rounds) below
+# which the radius kernel is compiled for and run on the local CPU
+# backend instead of the default accelerator: a small bootstrap cannot
+# amortize the accelerator's dispatch and fetch (~1 ms). Measured with
+# ``tests/benchmark_maxradius.py --crossover`` on one NVIDIA H100 80GB
+# HBM3 (400 W limit), 30 rounds: XLA:CPU won at 0.49M (N=128), the GPU
+# at 1.97M (N=256) and above. Set to 0 to always use the default
 # backend.
 CPU_WORK_THRESHOLD = int(os.environ.get(
-    'ULTRANEST_TPU_BOOTSTRAP_CPU_MAX', 64_000_000))
-
-
-def _use_pallas():
-    """Whether the VMEM-resident Pallas radius kernel should serve.
-
-    Force-only (ULTRANEST_TPU_PALLAS=force): re-measured round 3 on
-    one v5e chip the kernel still loses to the XLA scan (0.45 vs
-    0.15 ms at N=400/B=30/d=2 — a single fori_loop invocation cannot
-    pipeline rounds), unlike the membership kernel which wins per
-    dispatch at d>=4 (see fused.py / docs/performance.md).
-    """
-    import os
-    if os.environ.get('ULTRANEST_TPU_PALLAS', '0') != 'force':
-        return False
-    from .pallas_kernels import pallas_available
-    return pallas_available()
+    'ULTRANEST_TPU_BOOTSTRAP_CPU_MAX', 1_000_000))
 
 
 def _cpu_device():
@@ -126,12 +112,12 @@ _SHARDED_RADIUS_CACHE = {}
 def _radius_kernel_sharded(mesh, axis_name=None):
     """Bootstrap radius with rounds split across the mesh, pmax-merged.
 
-    TPU-native equivalent of the reference's MPI bootstrap split
+    Mesh equivalent of the reference's MPI bootstrap split
     (`/root/reference/ultranest/integrator.py:375-415`: each rank runs
     nbootstraps/size rounds, allreduce-max of the radius): each shard
-    whitens its own copy of the distance matrix and scans only its
-    rounds; one ``pmax`` rides the interconnect (hierarchically
-    ICI-then-DCN on a multi-slice tuple-axis mesh).
+    computes its own copy of the distance matrix and scans only its
+    rounds; one ``pmax`` crosses the interconnect (hierarchically,
+    within a host first, on a tuple-axis mesh).
     """
     if axis_name is None:
         from ..parallel import mesh_axes
@@ -161,9 +147,7 @@ def _numpy_radius(tpoints, masks, K=8):
     unselected point is almost surely among its K=8 nearest overall
     (miss probability 0.37^8 ~ 3e-4), so one shared (n, K) neighbour
     table answers every round with (B, n, K) boolean gathers. Misses
-    fall back to the exact column scan. Bit-identical to the loop and
-    measured 4.8 -> 2.4 ms per call at the eggbox rebuild shape
-    (n=400, 30 rounds; ~25 calls per run).
+    fall back to the exact column scan. Bit-identical to the loop.
     """
     from .pairwise import _np_sqdist
     n = len(tpoints)
@@ -173,7 +157,7 @@ def _numpy_radius(tpoints, masks, K=8):
     d2 = _np_sqdist(tpoints, tpoints)
     K = min(K, n)
     # row j of dT holds column j of d2 contiguously: the axis=1
-    # partition is ~3x faster than the strided axis=0 one at n=400.
+    # partition avoids the strided axis=0 one.
     # (BLAS Gram distances are NOT bit-symmetric, so reading row values
     # as column values would drift by one ulp vs the reference loop.)
     dT = np.ascontiguousarray(d2.T)
@@ -203,12 +187,6 @@ def _bootstrap_radius(tpoints, masks, mesh=None):
     valid = pad_rows(np.ones(n, bool), npd, False)
     tp = pad_rows(tpoints, npd)
     nshards = mesh.devices.size if mesh is not None else 1
-    if nshards == 1 and _use_pallas():
-        # single chip: keep the distance matrix in VMEM across rounds
-        from .pallas_kernels import bootstrap_radius_pallas
-        out = bootstrap_radius_pallas(tpoints, masks)
-        if out is not None:
-            return out
     if nshards > 1 and len(masks) >= nshards:
         # pad the round count to a multiple of the shard count with
         # all-selected rounds (their unselected set is empty, so they
@@ -248,9 +226,8 @@ def _bootstrap_enlargement(u, masks, mode):
 
     All rounds are reduced to BLAS matmuls through the moment identities
     ``var = E[x^2] - E[x]^2`` and ``S = sum x x^T - n c c^T`` instead of
-    materializing the (B, N, d) per-round residual tensor (naive
-    3-operand einsums measured 0.27 s of the 50-d headline's region
-    rebuild phase). ``u`` is centered on its global mean first, which
+    materializing the (B, N, d) per-round residual tensor that naive
+    3-operand einsums would build. ``u`` is centered on its global mean first, which
     bounds the cancellation error of the moment form: coordinates are
     O(spread), so ``E[x^2]`` carries no large constant offset.
     """

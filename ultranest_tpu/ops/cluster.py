@@ -3,13 +3,13 @@
 Friends-of-friends clustering
 -----------------------------
 
-TPU-native replacement for the reference's iterative cluster-growing loop
+Device replacement for the reference's iterative cluster-growing loop
 (`/root/reference/ultranest/mlfriends.pyx:275-384`). Two points belong to
 the same cluster iff they are connected through pairs closer than the
 MLFriends radius — i.e. connected components of the r-neighbourhood
 graph.
 
-The O(N^2 d) adjacency comes from one MXU Gram matmul on device; the
+The O(N^2 d) adjacency comes from one distance pass on device; the
 component labeling itself is a tiny graph problem solved on the host
 (union-find via scipy.sparse.csgraph). A pure-device pointer-jumping
 label propagation (`lax.while_loop`) is provided as an alternative for
@@ -56,8 +56,9 @@ def connected_components(tpoints, radiussq):
     tpoints = np.asarray(tpoints, dtype=np.float32)
     n = len(tpoints)
     if _small(n, n, tpoints.shape[1]):
-        # latency-aware routing: the adjacency of a few hundred points
-        # computes in <1 ms locally, far below one device round trip
+        # size-aware routing: the adjacency of a few hundred points
+        # computes on the host faster than one device round trip
+        # (HOST_WORK_THRESHOLD)
         adj = _np_sqdist(tpoints, tpoints) <= radiussq
     else:
         npd = round_up(n)

@@ -15,7 +15,7 @@ batched likelihood call is the only device boundary. When a jax
 likelihood is available, use the device engines in
 :mod:`ultranest_tpu.popfused` instead — they run the whole walk
 (directions, stepping-out, shrinking, acceptance) as one compiled
-``lax.while_loop`` program on the TPU.
+``lax.while_loop`` program on the device.
 """
 
 import numpy as np

@@ -11,8 +11,8 @@ and bootstrap rounds are sharded — is expressed natively over a JAX
 device mesh:
 
 * candidate generation + likelihood evaluation: ``shard_map`` over the
-  candidate batch axis, ``all_gather`` of results, ``psum`` of call counts
-  (riding ICI, not DCN);
+  candidate batch axis, ``all_gather`` of results, ``psum`` of call
+  counts;
 * deterministic per-shard RNG via ``jax.random.fold_in(key, axis_index)``
   (replacing the reference's rank-hashed seeds,
   integrator.py:1239-1251);
@@ -33,10 +33,10 @@ def mesh_axes(mesh):
     """All axis names of *mesh*: a single name (1-axis) or a tuple.
 
     The framework shards work over EVERY mesh axis — a 2-axis
-    ``('dcn', 'ranks')`` multi-slice mesh simply presents more workers;
-    jax collectives accept the tuple directly and XLA decomposes them
-    hierarchically (ICI within a slice, DCN across slices). This helper
-    is the one place the "shard over all axes" rule is encoded.
+    ``('hosts', 'ranks')`` mesh simply presents more workers; jax
+    collectives accept the tuple directly and XLA decomposes them
+    hierarchically (within a host first, then across hosts). This
+    helper is the one place the "shard over all axes" rule is encoded.
     """
     names = mesh.axis_names
     return names[0] if len(names) == 1 else tuple(names)
@@ -56,7 +56,7 @@ def make_mesh(n_devices=None, axis_name='ranks', shape=None):
         mesh axis name(s); a tuple requires a matching *shape*.
     shape: tuple of int or None
         multi-axis mesh shape, e.g. ``(2, 4)`` with
-        ``axis_name=('dcn', 'ranks')`` models a 2-slice x 4-chip pod
+        ``axis_name=('hosts', 'ranks')`` models 2 hosts x 4 GPUs
         (outer axis = slow interconnect). ``prod(shape)`` devices used.
     """
     devices = jax.devices()
@@ -89,7 +89,7 @@ def parallel_propose_evaluate(mesh, loglike, transform, x_dim,
     Each shard draws its own candidates inside the enlarged wrapping
     ellipsoid with a ``fold_in``-derived key, filters and evaluates them,
     then results are allgathered and call counts psum-reduced — the
-    TPU-native equivalent of the reference's per-rank candidate generation
+    mesh equivalent of the reference's per-rank candidate generation
     with gather+bcast merge (integrator.py:1916-1933).
 
     Returns a jitted function
@@ -109,10 +109,12 @@ def parallel_propose_evaluate(mesh, loglike, transform, x_dim,
                                jnp.float32) ** (1.0 / x_dim)
         offs = z * r * jnp.sqrt(enlarge)
         u = ell_ctr[None, :] + jnp.dot(offs, ell_axes_T,
-                                       preferred_element_type=jnp.float32)
+                                       preferred_element_type=jnp.float32,
+                                       precision=jax.lax.Precision.HIGHEST)
         in_cube = jnp.logical_and(u > 0, u < 1).all(axis=1)
         d = u - ell_ctr[None, :]
-        m = jnp.einsum('ij,jk,ik->i', d, ell_invcov, d)
+        m = jnp.einsum('ij,jk,ik->i', d, ell_invcov, d,
+                       precision=jax.lax.Precision.HIGHEST)
         member = jnp.logical_and(in_cube, m <= enlarge)
 
         v = transform(u)

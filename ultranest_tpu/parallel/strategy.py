@@ -5,12 +5,13 @@ Mesh-sharded strategy reductions
 
 The reference splits its ``num_bootstraps`` evidence estimators across
 MPI ranks and min/max-reduces the resulting improvement decisions
-(`/root/reference/ultranest/integrator.py:2889-2899`). The TPU-native
+(reference `ultranest/integrator.py:2889-2899`). The mesh
 counterpart computes the per-bootstrap posterior-divergence table as
 device math, sharded over the bootstrap axis of a
-:class:`jax.sharding.Mesh`, and psum-merges the column totals over ICI.
+:class:`jax.sharding.Mesh`, and psum-merges the column totals over the
+interconnect.
 
-The table is tiny by TPU standards (niter x nbootstraps f32), so the
+The table is tiny by device standards (niter x nbootstraps f32), so the
 point of the device path is not FLOPs but locality: during a reactive
 improvement decision the bootstrap weights are already device-resident
 from the evidence update, and the reduction rides the interconnect

@@ -4,7 +4,7 @@ Vectorized population step samplers
 -----------------------------------
 
 Whole populations of walkers advance with one batched likelihood call per
-step — the natural sampling mode for TPU/JAX likelihoods. Capability
+step — the natural sampling mode for batched JAX likelihoods. Capability
 equivalent of `/root/reference/ultranest/popstepsampler.py`; the
 per-walker state machines live in :mod:`ultranest_tpu.ops.stepfuncs`,
 and the fully device-resident engine in :mod:`ultranest_tpu.popfused`.
@@ -102,8 +102,7 @@ def decorrelation_gm_target(ndim):
     ``rho ~ 1 - gm^2/2`` — measured on the 100-d sigma=0.01 gaussian
     with the device cloud normalizer, gm 1.31 (rho~0.14) still biases
     logZ by +2.8 while the far-enough fraction is already saturated at
-    1.0 (evaluate/governor_signal_study.py,
-    evaluate/records/governor_signal_r5_2026-08-19.json).
+    1.0 (evaluate/governor_signal_study.py).
     """
     from scipy.special import digamma
     h = ndim / 2.0
